@@ -1,8 +1,8 @@
-// ug_native — native host-side runtime for ug_stereomatcher_tpu.
+// ug_native — native host-side runtime for ug_stereomatcher.
 //
 // The reference implements its host runtime in C++ (ROS nodes, OpenCV/PCL
 // plumbing, getPointCloud.cpp's reconstruction + pcl PCD writer).  This
-// library is the TPU framework's native counterpart for the host-side hot
+// library is the framework's native counterpart for the host-side hot
 // paths that sit outside XLA:
 //
 //   * point-cloud packing + binary PCD/PLY serialisation (millions of

@@ -64,6 +64,23 @@ def tex_point(src: np.ndarray, x: float, y: float) -> float:
     return src[iy, ix]
 
 
+def tex_linear(src: np.ndarray, x: float, y: float) -> float:
+    """CUDA tex2D linear filtering (cudaFilterModeLinear) with clamp
+    addressing: the four texels around (x - 0.5, y - 0.5), weighted by
+    the fractional parts."""
+    h, w = src.shape
+    xb, yb = x - 0.5, y - 0.5
+    x0, y0 = int(np.floor(xb)), int(np.floor(yb))
+    ax, ay = xb - x0, yb - y0
+
+    def at(yy, xx):
+        return float(src[_clamp(yy, 0, h - 1), _clamp(xx, 0, w - 1)])
+
+    top = (1 - ax) * at(y0, x0) + ax * at(y0, x0 + 1)
+    bot = (1 - ax) * at(y0 + 1, x0) + ax * at(y0 + 1, x0 + 1)
+    return (1 - ay) * top + ay * bot
+
+
 def conv_row_clamp(src, kernel):
     """Texture row conv (convolutionRowsKernelT, MatchLib.cu:1461-1498)."""
     h, w = src.shape
@@ -95,21 +112,23 @@ def conv_sep_clamp(src, kernel):
     return conv_col_clamp(conv_row_clamp(src, kernel), kernel)
 
 
-def subsample(src, out_h, out_w, scale):
-    """subsampleKernel gold (MatchLib.cu:311-339)."""
+def subsample(src, out_h, out_w, scale, tex=tex_point):
+    """subsampleKernel gold (MatchLib.cu:311-339); ``tex=tex_linear`` for
+    the bilinear option."""
     out = np.zeros((out_h, out_w), dtype=src.dtype)
     for iy in range(out_h):
         for ix in range(out_w):
-            out[iy, ix] = tex_point(src, (ix + 0.5) * scale, (iy + 0.5) * scale)
+            out[iy, ix] = tex(src, (ix + 0.5) * scale, (iy + 0.5) * scale)
     return out
 
 
-def upsample_disp(src, out_h, out_w, scale, value_scale=SCALE):
+def upsample_disp(src, out_h, out_w, scale, value_scale=SCALE,
+                  tex=tex_point):
     """subsampleDispKernel gold (MatchLib.cu:372-401)."""
     out = np.zeros((out_h, out_w), dtype=src.dtype)
     for iy in range(out_h):
         for ix in range(out_w):
-            out[iy, ix] = value_scale * tex_point(
+            out[iy, ix] = value_scale * tex(
                 src, (ix + 0.5) * scale, (iy + 0.5) * scale)
     return out
 
@@ -167,15 +186,16 @@ def subsample_cubic(src, out_h, out_w, scale):
     return out
 
 
-def warp(src, disp_x, disp_y):
-    """warpAbyB gold (MatchLib.cu:499-520)."""
+def warp(src, disp_x, disp_y, tex=tex_point):
+    """warpAbyB gold (MatchLib.cu:499-520).  The sample coordinate is
+    formed in float32, as the device computes it."""
     h, w = src.shape
     out = np.zeros_like(src)
     for iy in range(h):
         for ix in range(w):
-            x = ix + 0.5
-            y = iy + 0.5
-            out[iy, ix] = tex_point(src, x + disp_x[iy, ix], y + disp_y[iy, ix])
+            x = np.float32(ix + 0.5) + np.float32(disp_x[iy, ix])
+            y = np.float32(iy + 0.5) + np.float32(disp_y[iy, ix])
+            out[iy, ix] = tex(src, float(x), float(y))
     return out
 
 
@@ -207,8 +227,10 @@ def correlation_ratio(bcross, bl2, bw2, dx, dy):
     return out
 
 
-def parabola_fit(l, c, r, threshold):
-    """PolyDisparity gold (MatchLib.cu:790-843)."""
+def parabola_fit(l, c, r, threshold, no_peak=0.4, aff_scale=0.3,
+                 aff_bias=0.7):
+    """PolyDisparity gold (MatchLib.cu:790-843); the confidence constants
+    default to the reference's literals."""
     h, w = c.shape
     off = np.zeros_like(c)
     conf = np.zeros_like(c)
@@ -229,16 +251,16 @@ def parabola_fit(l, c, r, threshold):
                     conf[iy, ix] = 1.0
                 else:
                     off[iy, ix] = o
-                    conf[iy, ix] = 0.3 * cstar + 0.7
+                    conf[iy, ix] = aff_scale * cstar + aff_bias
             else:
                 off[iy, ix] = 0.0
-                conf[iy, ix] = 0.4
+                conf[iy, ix] = no_peak
     return off, conf
 
 
-def blend_confidence(new, old):
+def blend_confidence(new, old, w_new=0.75, w_old=0.25):
     """TrueConfidence gold (MatchLib.cu:990-1013)."""
-    out = 0.75 * new + 0.25 * old
+    out = w_new * new + w_old * old
     return np.clip(out, 0.0, 1.0)
 
 

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.pipeline.supervisor import EngineSupervisor
-from ug_stereomatcher_tpu.profiling import Timings, device_trace
-from ug_stereomatcher_tpu import native
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.pipeline.supervisor import EngineSupervisor
+from ug_stereomatcher.profiling import Timings, device_trace
+from ug_stereomatcher import native
 
 
 class TestTimings:
@@ -91,7 +91,7 @@ class TestNative:
         native.write_ply(ply, xyz, rgb)
 
         # native output must be byte-identical to the NumPy writer
-        from ug_stereomatcher_tpu.geom.pointcloud import (
+        from ug_stereomatcher.geom.pointcloud import (
             PointCloud, save_pcd, save_ply)
         pcd2 = str(tmp_path / "p.pcd")
         ply2 = str(tmp_path / "p.ply")

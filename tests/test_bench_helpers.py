@@ -46,10 +46,10 @@ class TestCacheCounters:
 
 
 class TestModeValidation:
-    def test_unknown_mode_rejected_before_probe(self):
+    def test_unknown_mode_rejected_before_jax(self):
         """A typo'd BENCH_MODE must produce a structured error line and
         rc=2 in under a minute — NOT fall through to the full 16MP
-        suite, and not even pay the backend probe."""
+        suite."""
         env = dict(os.environ, BENCH_MODE="bogus")
         r = subprocess.run([sys.executable, "bench.py"],
                            capture_output=True, text=True, timeout=60,
@@ -102,8 +102,8 @@ class _FakePoint:
 
 class _FakeJax:
     class _Dev:
-        def __str__(self):
-            return "FakeDevice0"
+        platform = "fake"
+        device_kind = "FakeDevice"
 
     @staticmethod
     def devices():
@@ -116,7 +116,7 @@ class TestScalingHeadline:
     structured diagnostic)."""
 
     def _run(self, monkeypatch, modes_env, fake):
-        from ug_stereomatcher_tpu.parallel import throughput as tp
+        from ug_stereomatcher.parallel import throughput as tp
         monkeypatch.setattr(tp, "measure_throughput", fake)
         monkeypatch.setenv("BENCH_SCALING_MODES", modes_env)
         monkeypatch.delenv("BENCH_H", raising=False)

@@ -4,13 +4,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.ops.consistency import (
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.ops.consistency import (
     apply_consistency,
     lr_consistency_mask,
 )
-from ug_stereomatcher_tpu.eval import synthetic_scene
+from ug_stereomatcher.eval import synthetic_scene
 
 
 class TestMaskMath:

@@ -4,11 +4,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu.ops.convergence import (
+from ug_stereomatcher.ops.convergence import (
     has_converged,
     weighted_difference,
 )
-from ug_stereomatcher_tpu.geom.undistort import (
+from ug_stereomatcher.geom.undistort import (
     distort_normalized,
     undistort_pixels,
 )

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.io import viz
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.io import viz
 
 
 class TestMatchBatch:
@@ -48,7 +48,7 @@ class TestWarmup:
     def test_warmup_then_match(self):
         eng = StereoEngine(MatcherConfig())
         eng.warmup(48, 64)
-        assert ("match", 48, 64, eng.config, False) in eng._cache
+        assert ("match", 48, 64, eng.config) in eng._cache
         img = np.zeros((48, 64, 3), np.uint8)
         res = eng.match(img, img)
         assert res.disparity_h.shape == (48, 64)
@@ -74,7 +74,7 @@ class TestViz:
         res = eng.match(img, img)
         p = viz.render_panel(res, str(tmp_path / "panel.png"))
         assert os.path.exists(p)
-        from ug_stereomatcher_tpu.io.image import load_image
+        from ug_stereomatcher.io.image import load_image
         panel = load_image(p)
         assert panel.shape == (48, 64 * 3, 3)
 

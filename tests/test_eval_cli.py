@@ -8,10 +8,10 @@ import sys
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu import eval as ev
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.io.image import save_image
+from ug_stereomatcher import eval as ev
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.io.image import save_image
 
 
 class TestEpeMetrics:
@@ -57,9 +57,9 @@ class TestSyntheticScenes:
         assert r.mean_abs_v < 0.5
 
 
-# Per-scene regression gates over the full A/B table (VERDICT r2 item 7):
+# Per-scene regression gates over the full A/B table:
 # thresholds are ~1.5-2x the values measured by `python -m
-# ug_stereomatcher_tpu eval` (docs/ACCURACY.md) — a regression on ANY scene
+# ug_stereomatcher eval` (docs/ACCURACY.md) — a regression on ANY scene
 # kind, in either interp mode, fails CI.
 _GATES = {
     # interp: {scene: (median_epe_max, bad_1_0_max)}
@@ -101,7 +101,7 @@ class TestPerSceneAccuracyGates:
 
 class TestEarlyExitAccuracy:
     """Accuracy gates behind the measured early-exit throughput claims
-    (docs/PERF.md 'Convergence early exit', r5): nearest at thr=0.1 and
+    (PERF.md, early exit): nearest at thr=0.1 and
     bilinear at thr=0.02 hold their parity-mode accuracy on the full
     suite (nearest/0.1 measured ~23% faster at 16MP; bilinear/0.1 was
     measured to DESTROY accuracy — 0.469 median, 48% >1px on constant —
@@ -124,7 +124,7 @@ class TestEarlyExitAccuracy:
 
 
 class TestStressFamilies:
-    """Real-scene stressors (VERDICT r4 missing item 2): occlusion with an
+    """Real-scene stressors: occlusion with an
     exact no-correct-match mask, and photometric asymmetry between eyes.
     Gates measured round 5 at 192x256 (nearest 0.319/0.280 median EPE,
     conf 0.998 matched vs 0.844 occluded; bilinear 0.021/0.040, 0.999 vs
@@ -213,7 +213,7 @@ class TestCli:
         return lp, rp
 
     def _run(self, *argv):
-        from ug_stereomatcher_tpu.cli import main
+        from ug_stereomatcher.cli import main
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
@@ -274,32 +274,32 @@ class TestCli:
 
 class TestConfigFile:
     def test_yaml_roundtrip(self, tmp_path):
-        from ug_stereomatcher_tpu.config import MatcherConfig
+        from ug_stereomatcher.config import MatcherConfig
         p = tmp_path / "cfg.yaml"
-        p.write_text("fovea_level: 3\ninterp: bilinear\nwarp_max_dx: 512\n")
+        p.write_text("fovea_level: 3\ninterp: bilinear\nsmooth_passes: 7\n")
         cfg = MatcherConfig.from_file(str(p))
         assert cfg.fovea_level == 3
         assert cfg.interp == "bilinear"
-        assert cfg.warp_max_dx == 512
+        assert cfg.smooth_passes == 7
         assert cfg.max_level == 14  # defaults preserved
 
     def test_unknown_key_rejected(self, tmp_path):
-        from ug_stereomatcher_tpu.config import MatcherConfig
+        from ug_stereomatcher.config import MatcherConfig
         p = tmp_path / "cfg.json"
         p.write_text('{"fovae_level": 3}')  # typo
         with pytest.raises(ValueError, match="unknown config fields"):
             MatcherConfig.from_file(str(p))
 
     def test_cli_config_with_override(self, tmp_path):
-        from ug_stereomatcher_tpu.eval import synthetic_scene
-        from ug_stereomatcher_tpu.io.image import save_image
+        from ug_stereomatcher.eval import synthetic_scene
+        from ug_stereomatcher.io.image import save_image
         left, right, _, _ = synthetic_scene("constant", 64, 96, magnitude=2.0)
         lp, rp = str(tmp_path / "l.png"), str(tmp_path / "r.png")
         save_image(lp, left)
         save_image(rp, right)
         cfgp = tmp_path / "cfg.yaml"
         cfgp.write_text("fovea_level: 6\n")
-        from ug_stereomatcher_tpu.cli import main
+        from ug_stereomatcher.cli import main
         import io as _io
         from contextlib import redirect_stdout
         buf = _io.StringIO()

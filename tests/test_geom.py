@@ -8,8 +8,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu import geom
-from ug_stereomatcher_tpu.config import MatcherConfig
+from ug_stereomatcher import geom
+from ug_stereomatcher.config import MatcherConfig
 
 REF_CAL_L = "/root/reference/calibrations/calL.xml"
 REF_CAL_R = "/root/reference/calibrations/calR.xml"
@@ -93,6 +93,36 @@ class TestTriangulation:
             np.testing.assert_allclose(ours, gold, rtol=1e-3, atol=1e-4)
             # Exact reprojected points reconstruct X itself
             np.testing.assert_allclose(ours, X, rtol=1e-2, atol=1e-3)
+
+    def test_float32_verged_rig_precision(self):
+        """16MP verged rig in float32: nearly parallel rays make the
+        expanded closed form lose ~1% of depth; the QR solve must stay
+        within float32 noise of the float64 least-squares gold."""
+        f, base, h, w = 4000.0, 0.1, 3264, 4928
+        k = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+        ang = 0.05
+        rot = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                        [-np.sin(ang), 0, np.cos(ang)]])
+        P1 = k @ np.hstack([np.eye(3), np.zeros((3, 1))])
+        P2 = k @ np.hstack([rot, [[base], [0.01], [0.002]]])
+        rng = np.random.RandomState(5)
+        n = 400
+        x1, y1 = rng.rand(n) * w, rng.rand(n) * h
+        z = 50 + rng.rand(n) * 100
+        pts = np.stack([(x1 - w / 2) * z / f, (y1 - h / 2) * z / f, z,
+                        np.ones(n)])
+        p2 = P2 @ pts
+        x2 = p2[0] / p2[2]
+        y2 = p2[1] / p2[2] + rng.randn(n) * 0.3   # off the epipolar line
+        ours = np.stack([np.asarray(v) for v in geom.triangulate_points(
+            P1.astype(np.float32), P2.astype(np.float32),
+            *(jnp.asarray(v, jnp.float32) for v in (x1, y1, x2, y2)))])
+        gold = np.stack([scalar_gold_triangulate(P1, P2, *args)
+                         for args in zip(x1, y1, x2, y2)], axis=1)
+        rel = np.abs(ours[2] - gold[2]) / gold[2]
+        assert np.isfinite(ours).all()
+        assert np.median(rel) < 1e-4 and rel.max() < 2e-3, (
+            np.median(rel), rel.max())
 
     def test_disparity_field_triangulation(self):
         rig = make_rig()
@@ -246,7 +276,7 @@ class TestFoveatedResized:
         # Z comes from the resized range map (reference :874), not from the
         # per-point triangulation
         rmap = geom.foveated_range_map(rig, cfg, stack_h, stack_v, (H, W))
-        from ug_stereomatcher_tpu.ops.resample import subsample
+        from ug_stereomatcher.ops.resample import subsample
         import jax.numpy as jnp
         z_res = np.asarray(subsample(jnp.asarray(rmap), out_h, out_w,
                                      1.0 / f, method="bilinear"))

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu import io as uio
-from ug_stereomatcher_tpu.engine import MatchResult, FoveatedStackResult
+from ug_stereomatcher import io as uio
+from ug_stereomatcher.engine import MatchResult, FoveatedStackResult
 
 REF_LIST = "/root/reference/src/utils/input_images.xml"
 
@@ -84,13 +84,13 @@ class TestDumps:
 
 class TestManifestValidation:
     def test_odd_length_list_rejected(self, tmp_path):
-        from ug_stereomatcher_tpu.io.manifest import ImageList
+        from ug_stereomatcher.io.manifest import ImageList
         import pytest as _pytest
         with _pytest.raises(ValueError, match="whole left/right pairs"):
             ImageList(["l1.png", "r1.png", "l2.png"])
 
     def test_skip_pair_advances(self):
-        from ug_stereomatcher_tpu.io.manifest import ImageList
+        from ug_stereomatcher.io.manifest import ImageList
         il = ImageList(["l1", "r1", "l2", "r2"])
         il.skip_pair()
         assert il.next_pair() == ("l2", "r2")
@@ -100,13 +100,13 @@ class TestWritePpmValidation:
     def test_rejects_grayscale(self, tmp_path):
         import numpy as np
         import pytest as _pytest
-        from ug_stereomatcher_tpu.native.bindings import write_ppm
+        from ug_stereomatcher.native.bindings import write_ppm
         with _pytest.raises(ValueError, match=r"\(H, W, 3\)"):
             write_ppm(str(tmp_path / "x.ppm"), np.zeros((4, 6), np.uint8))
 
     def test_header_comment_sharing_line(self, tmp_path):
         import numpy as np
-        from ug_stereomatcher_tpu.native.bindings import read_ppm
+        from ug_stereomatcher.native.bindings import read_ppm
         img = np.arange(4 * 6 * 3, dtype=np.uint8).reshape(4, 6, 3)
         f = tmp_path / "c.ppm"
         with open(f, "wb") as fh:

@@ -6,10 +6,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu import match as match_mod
-from ug_stereomatcher_tpu import pyramid as pyr
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
+from ug_stereomatcher import match as match_mod
+from ug_stereomatcher import pyramid as pyr
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
 from tests.gold import gold_match as gm
 
 
@@ -291,8 +291,28 @@ class TestEarlyExit:
         mi = cfg.iters_for_level(n - 1)
         thr = jnp.asarray(cfg.threshold_schedule(mi), jnp.float32)
         one = match_mod._match_level_scan(
-            lp[n - 1], rp[n - 1], disp, n - 1, cfg, True, 1,
+            lp[n - 1], rp[n - 1], disp, cfg, True, 1,
             cfg.smooth_passes_for_level(n - 1), thr[:1])
         # while vs scan fusion differs at the ulp level (see class doc)
         np.testing.assert_allclose(np.asarray(out), np.asarray(one),
                                    atol=1e-5)
+
+    def test_coarse_levels_keep_the_full_schedule(self):
+        """Levels at coarse_min_index and above ignore early exit: a huge
+        threshold there must change nothing."""
+        import dataclasses
+        h, w = 24, 32
+        left, right = synthetic_pair(h, w, shift_x=1)
+        cfg = MatcherConfig(coarse_min_index=1)
+        disp = jnp.zeros((3, h, w), jnp.float32)
+        args = (jnp.asarray(left), jnp.asarray(right), disp, 1)
+        full = match_mod.match_level(*args, cfg, True)
+        big = match_mod.match_level(
+            *args, dataclasses.replace(cfg, early_exit_delta=1e9), True)
+        np.testing.assert_array_equal(np.asarray(big), np.asarray(full))
+        fine = match_mod.match_level(
+            jnp.asarray(left), jnp.asarray(right), disp, 0,
+            dataclasses.replace(cfg, early_exit_delta=1e9), True)
+        ref = match_mod.match_level(jnp.asarray(left), jnp.asarray(right),
+                                    disp, 0, cfg, True)
+        assert not np.array_equal(np.asarray(fine), np.asarray(ref))

@@ -17,7 +17,7 @@ import pytest
 
 import jax
 
-from ug_stereomatcher_tpu.parallel.multihost import (
+from ug_stereomatcher.parallel.multihost import (
     distributed_config,
     initialize_distributed,
     pod_mesh,
@@ -135,7 +135,7 @@ _WORKER = textwrap.dedent("""
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from ug_stereomatcher_tpu.parallel.multihost import (
+    from ug_stereomatcher.parallel.multihost import (
         initialize_distributed, pod_mesh)
     active = initialize_distributed()
     assert active, "expected multi-process mode"

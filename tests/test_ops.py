@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu import ops
-from ug_stereomatcher_tpu.config import gaussian_kernel, average_kernel
+from ug_stereomatcher import ops
+from ug_stereomatcher.config import gaussian_kernel, average_kernel
 from tests.gold import gold_ops as gold
 
 RNG = np.random.RandomState(0)

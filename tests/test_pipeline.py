@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.io.image import save_image
-from ug_stereomatcher_tpu.pipeline import (
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.io.image import save_image
+from ug_stereomatcher.pipeline import (
     BatchRunner,
     CamerasSync,
     ImageListCapture,

@@ -4,8 +4,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from ug_stereomatcher_tpu import pyramid as pyr
-from ug_stereomatcher_tpu.config import MatcherConfig
+from ug_stereomatcher import pyramid as pyr
+from ug_stereomatcher.config import MatcherConfig
 from tests.gold import gold_match as gm
 
 RNG = np.random.RandomState(7)

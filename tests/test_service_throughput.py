@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from ug_stereomatcher_tpu.config import MatcherConfig
-from ug_stereomatcher_tpu.engine import StereoEngine
-from ug_stereomatcher_tpu.io.image import save_image
-from ug_stereomatcher_tpu.pipeline import BatchRunner, ImageListCapture
-from ug_stereomatcher_tpu.pipeline.messages import GetDisparitiesRequest
-from ug_stereomatcher_tpu.pipeline.service import DisparityService
+from ug_stereomatcher.config import MatcherConfig
+from ug_stereomatcher.engine import StereoEngine
+from ug_stereomatcher.io.image import save_image
+from ug_stereomatcher.pipeline import BatchRunner, ImageListCapture
+from ug_stereomatcher.pipeline.messages import GetDisparitiesRequest
+from ug_stereomatcher.pipeline.service import DisparityService
 
 
 def _pair(h=48, w=64, seed=0):
@@ -78,7 +78,7 @@ class TestCheckpointResume:
 class TestThroughput:
     def test_scaling_on_cpu_mesh(self):
         import jax
-        from ug_stereomatcher_tpu.parallel import measure_throughput
+        from ug_stereomatcher.parallel import measure_throughput
         n = min(4, len(jax.devices()))
         pts = measure_throughput(height=48, width=64,
                                  device_counts=[1, n], repeats=2)
@@ -91,11 +91,10 @@ class TestThroughput:
 
     def test_foveated_dp_scaling(self):
         """foveated=True benches mode 2 through the same harness: the DP
-        curve of the reference's throughput configuration (VERDICT r4
-        item 5).  48x64 supports 5 levels, so fovea_level is lowered."""
+        curve of the reference's throughput configuration.  48x64 supports 5 levels, so fovea_level is lowered."""
         import jax
-        from ug_stereomatcher_tpu.config import MatcherConfig
-        from ug_stereomatcher_tpu.parallel import measure_throughput
+        from ug_stereomatcher.config import MatcherConfig
+        from ug_stereomatcher.parallel import measure_throughput
         n = min(2, len(jax.devices()))
         cfg = MatcherConfig(fovea_level=3)
         pts = measure_throughput(height=48, width=64,
@@ -111,7 +110,7 @@ class TestThroughput:
         """'sp' points keep batch=1 and put every device on the rows axis
         (latency scaling of a single row-sharded pair)."""
         import jax
-        from ug_stereomatcher_tpu.parallel import measure_throughput
+        from ug_stereomatcher.parallel import measure_throughput
         n = min(4, len(jax.devices()))
         pts = measure_throughput(height=96, width=64,
                                  device_counts=[1, n], repeats=1,
@@ -122,7 +121,7 @@ class TestThroughput:
 
     def test_hybrid_mode_mesh_shape(self):
         import jax
-        from ug_stereomatcher_tpu.parallel import measure_throughput
+        from ug_stereomatcher.parallel import measure_throughput
         if len(jax.devices()) < 4:
             pytest.skip("needs 4 devices")
         pts = measure_throughput(height=96, width=64,
@@ -136,16 +135,15 @@ class TestThroughput:
         batch to the axis size and slices back, the hybrid matcher
         row-shards each pair across its rows-group — two entirely
         different partitionings of the same work that must produce the
-        same disparities (VERDICT r3 item 5; SURVEY.md §2.5 DP x SP
-        composition).  The relative TIMING of the two layouts is a
+        same disparities (SURVEY.md §2.5 DP x SP composition).  The relative TIMING of the two layouts is a
         hardware property, not a correctness one — on this rig's virtual
         CPU mesh shard_map halo overhead beats any SP gain at every size
-        measured (docs/PERF.md 'mesh-family scaling'), so the timing is
+        measured, so the timing is
         recorded by BENCH_MODE=scaling, not asserted here."""
         import jax
         import jax.numpy as jnp
-        from ug_stereomatcher_tpu.parallel.batch import make_batch_matcher
-        from ug_stereomatcher_tpu.parallel.mesh import make_mesh
+        from ug_stereomatcher.parallel.batch import make_batch_matcher
+        from ug_stereomatcher.parallel.mesh import make_mesh
         if len(jax.devices()) < 4:
             pytest.skip("needs 4 devices")
         cfg = MatcherConfig()

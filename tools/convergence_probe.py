@@ -9,23 +9,21 @@ metric (MatchGPULib.cpp:1336-1437) traced through the live loop body via
 trajectories show how many iterations each level would run at a given
 threshold and what residual change the cut-off leaves on the table.
 
-Round-4 reference measurement (408x616 octave texture, CPU, this tool):
-deltas decay SLOWLY — mid levels still move 0.03-0.07 px/iteration at the
-end of their schedule, so the reference's fixed schedule is tight for
-natural textures and thresholds <= 0.05 trim only a little (e.g. L3 exits
-at 3/8).  Early exit pays on easy scenes (low texture, small true
-disparity), not as a blanket speedup.  docs/PERF.md 'Convergence early
-exit' records the table.
+On a 408x616 octave texture the deltas decay slowly — mid levels still
+move 0.03-0.07 px/iteration at the end of their schedule — so the
+reference's fixed schedule is tight for natural textures and small
+thresholds trim only a little.  Early exit pays on easy scenes (low
+texture, small true disparity), not as a blanket speedup.
 
 Usage:  python tools/convergence_probe.py [H W] [--cpu]
         (defaults 408 616; --cpu forces the CPU backend)
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import os
 if "--cpu" in sys.argv:
     sys.argv.remove("--cpu")
     os.environ["BENCH_PLATFORM"] = "cpu"
@@ -35,9 +33,9 @@ jax = _setup_jax()
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from ug_stereomatcher_tpu import MatcherConfig  # noqa: E402
-from ug_stereomatcher_tpu import match as match_mod  # noqa: E402
-from ug_stereomatcher_tpu import pyramid as pyr  # noqa: E402
+from ug_stereomatcher import MatcherConfig  # noqa: E402
+from ug_stereomatcher import match as match_mod  # noqa: E402
+from ug_stereomatcher import pyramid as pyr  # noqa: E402
 
 
 def main():
@@ -53,7 +51,7 @@ def main():
     hh, ww = dims[n - 1]
     disp = jnp.zeros((3, hh, ww), jnp.float32)
     print(f"# convergence probe {h}x{w}, {n} levels, "
-          f"backend={jax.default_backend()}")
+          f"device={jax.devices()[0].device_kind}")
     for i in range(n - 1, -1, -1):
         out, deltas = match_mod.level_convergence_trace(
             lp[i], rp[i], disp, i, cfg, i == n - 1)
